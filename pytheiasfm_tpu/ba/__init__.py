@@ -1,4 +1,4 @@
-"""Bundle adjustment: dense-Schur MXU solver (small/medium problems) +
+"""Bundle adjustment: dense-Schur matmul solver (small/medium problems) +
 LM with implicit Schur complement + PCG (large problems)."""
 
 from . import dense_schur, iterative_schur, lm, losses  # noqa: F401

@@ -5,7 +5,7 @@ materializes and inverts the full [6V, 6V] camera Schur complement — the
 right tool below ~1024 views, an OOM above. The reference's
 `ceres::Covariance` path (`bundle_adjuster.cc:660-744`) works at any
 scale because it only solves for the REQUESTED blocks; this module is the
-TPU-native equivalent: the columns of S^-1 belonging to the selected
+Batched equivalent: the columns of S^-1 belonging to the selected
 views come from block-Jacobi-preconditioned CG against the IMPLICIT
 Schur operator
 
@@ -22,8 +22,8 @@ solves: cov_t = V_t^-1 + sum_ab Z_a^T S^-1[v_a, v_b] Z_b needs S^-1
 columns only at the track's observing views.
 
 CG runs in HOST-CHUNKED launches (`cg_chunk_iters` per device program)
-so one launch stays far inside runtime watchdogs at any problem size,
-with convergence checked between launches.
+so one device program stays short at any problem size, with convergence
+checked between launches.
 
 Semantics match the dense path exactly: frozen (gauge) cameras carry
 identity rows with a 1e-8 ridge, the operator is undamped, and the

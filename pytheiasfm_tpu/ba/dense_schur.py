@@ -1,12 +1,12 @@
-"""Dense-Schur Levenberg-Marquardt bundle adjustment — the MXU path.
+"""Dense-Schur Levenberg-Marquardt bundle adjustment — the matmul path.
 
-TPU-native re-design of the reference's small/medium-problem BA
+Batched re-design of the reference's small/medium-problem BA
 configuration: Ceres SPARSE_SCHUR below `min_cameras_for_iterative_solver`
 (=1000) cameras (`/root/reference/src/theia/sfm/reconstruction_estimator_options.h:291-300`,
 `bundle_adjuster.cc:315-341`). Ceres eliminates point blocks and runs a
-sparse Cholesky on the reduced camera system; on TPU the reduced system for
-V <= ~1000 cameras is only a [6V, 6V] dense matrix (Notre Dame at 553 cams:
-3318^2 f32 = 44 MB), and a dense MXU Cholesky factorizes it in ~3 ms. So
+sparse Cholesky on the reduced camera system; on an accelerator the reduced
+system for V <= ~1000 cameras is only a [6V, 6V] dense matrix (Notre Dame
+at 553 cams: 3318^2 f32 = 44 MB), which one dense Cholesky factorizes. So
 this kernel *materializes* the Schur complement with matmuls and solves it
 directly — no PCG loop, no scatter:
 
@@ -18,11 +18,10 @@ directly — no PCG loop, no scatter:
             per-slot coupling blocks W[t,l] = J_c^T J_p are placed into a
             dense [6V, 3Tc] matrix per track chunk with a ONE-HOT MATMUL
             over views (einsum 'tlv,tlij->vitj') — data movement expressed
-            as MXU work instead of XLA scatter (measured ~100 ns/row, the
-            round-2 bottleneck).
+            as matmul work instead of XLA scatter.
   Schur     S = U + mu*D - sum_c Z_c W_c^T with Z = W V^-1: one [6V, 3Tc]
             x [3Tc, 6V] matmul per chunk — the FLOP-dominant op, straight
-            on the MXU (optionally bf16 via
+            as matmuls (optionally bf16 via
             `options.use_mixed_precision_solves`, mirroring
             `bundle_adjustment.h:111`).
   solve     Cholesky + triangular solves on [6V, 6V]; point back-
@@ -76,7 +75,7 @@ def _view_onehot(view_ids, num_views, dtype):
 
 
 def _view_reduce(values, onehot_flat):
-    """sum_o values[o] -> [V, d] via one MXU matmul ([V, O] @ [O, d])."""
+    """sum_o values[o] -> [V, d] via one matmul ([V, O] @ [O, d])."""
     return jnp.einsum(
         "ov,od->vd", onehot_flat, values, preferred_element_type=values.dtype
     )
@@ -260,7 +259,7 @@ def _bundle_adjust_dense_impl(
         #   placement  [Tc,L,V] x [Tc,L,6,3] -(batch t, contract l)->
         #              [Tc,V,6,3]  (each W block lands at its view row)
         #   product    [Tc,V,6,3] x [Tc,V,6,3] -(contract t,k)->
-        #              [V,6,V,6]   (3*Tc-deep MXU contraction)
+        #              [V,6,V,6]   (3*Tc-deep matmul contraction)
         mm_dtype = jnp.bfloat16 if mixed else dtype
         place_dims = (((1,), (1,)), ((0,), (0,)))
         prod_dims = (((0, 3), (0, 3)), ((), ()))
@@ -284,10 +283,7 @@ def _bundle_adjust_dense_impl(
             # psum combines per-device partial Schur products.
             from jax.sharding import PartitionSpec as PS
 
-            try:  # jax>=0.4.31
-                from jax import shard_map
-            except ImportError:  # pragma: no cover
-                from jax.experimental.shard_map import shard_map
+            from jax import shard_map
 
             axis = mesh.axis_names[0]
 
@@ -416,8 +412,8 @@ def bundle_adjust_dense(
 ):
     """LM to convergence with a dense materialized Schur complement
     (see `_bundle_adjust_dense_impl` for the kernel itself). Launched in
-    `max_iterations_per_launch`-sized chunks with damping carried —
-    long single executions trip runtime watchdogs."""
+    `max_iterations_per_launch`-sized chunks with damping carried, so no
+    single device program runs for long."""
 
     def impl(state, chunk_options, mu0):
         ext, pts = state

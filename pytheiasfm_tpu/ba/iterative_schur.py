@@ -4,9 +4,9 @@ configuration, `reconstruction_estimator_options.h:291-300`, selected above
 `min_cameras_for_iterative_solver` = 1000 cameras).
 
 The round-2/3 implicit kernel (`ba/lm.py`) expressed every reduction as
-`segment_sum` over the flat observation table; on TPU those lower to
-scatters (~100 ns/row), which made Piccadilly-scale BA (2152 cameras,
-~600k observations) SLOWER than the 2016 Ceres CPU baseline. This kernel
+`segment_sum` over the flat observation table, which lowers to scatters
+(atomics on a GPU, with a sum order that varies from run to run). This
+kernel
 applies the dense-Schur playbook (`ba/dense_schur.py`) to the iterative
 case: NO scatter anywhere. Observations live in TWO layouts at once:
 
@@ -18,7 +18,7 @@ case: NO scatter anywhere. Observations live in TWO layouts at once:
                `rc_src` indexing back into the flat [T*L] track layout.
                Camera-side adjoints (Jc^T y) are a GATHER into this layout,
                a dense sum over C, and a one-hot [V, R] matmul — data
-               movement as MXU work, never scatter.
+               movement as matmul work, never scatter.
 
 Per PCG iteration the Schur matvec S x = Jc^T (y - Jp V^-1 Jp^T y) + mu D x
 is: one gather of x to slots, four dense einsums, one gather of the
@@ -63,8 +63,9 @@ from .losses import loss_rho, loss_weight
 __all__ = ["bundle_adjust_iterative"]
 
 # Slot count above which the block build runs as a lax.scan over track
-# chunks (single-shot build OOMs from minor-dim padding past this;
-# module-level so tests can lower it to exercise the scan path).
+# chunks, to bound the memory of the single-shot build's intermediates
+# (module-level so tests can lower it to exercise the scan path). The
+# value was sized on another accelerator and is untuned on the H100.
 _SCAN_SLOT_THRESHOLD = 1_100_000
 
 
@@ -75,11 +76,10 @@ def _onehot(ids, n, dtype):
     )
 
 
-# Batched small matrix products as explicit broadcast-FMA sums. XLA's TPU
-# lowering of [BIG, tiny, tiny] einsums runs at ~20-40 GB/s (batched-gemm
-# path with ~5% lane utilization); unrolling the tiny contraction into
-# broadcasts compiles to fused full-lane elementwise ops — measured 2-3.5x
-# faster at Piccadilly scale (600k observations).
+# Batched small matrix products as explicit broadcast-FMA sums: unrolling
+# the tiny contraction of a [BIG, tiny, tiny] einsum into broadcasts
+# compiles to fused elementwise ops instead of a batched matmul with
+# tiny operands. Chosen on another accelerator; untuned on the H100.
 
 
 def _atb(a, b):
@@ -234,8 +234,7 @@ def _bundle_adjust_iterative_impl(
 
     # Loop-invariant bases, index maps, and pre-gathered per-slot rows.
     # Anything here is computed ONCE before the LM while_loop — XLA does
-    # not hoist gathers out of while bodies, and a 600k-index gather costs
-    # ~5 ms per execution on v5e.
+    # not hoist gathers out of while bodies.
     row_oh = _onehot(row_view, V, dtype)  # [V, R]
     group_oh = _onehot(view_group, G, dtype)  # [G, V]
     group_slot = view_group[track_views]  # [T, L]
@@ -469,7 +468,7 @@ def _bundle_adjust_iterative_impl(
                 )
                 packs.append(B_slot)
                 # Global reductions straight from the track layout
-                # (P-sized outputs — real MXU contractions, no pack
+                # (P-sized outputs — real matmul contractions, no pack
                 # columns needed); summed across chunks by the carry.
                 part["Sq1"] = jnp.sum(Ug_slot, axis=(0, 1)) - jnp.einsum(
                     "tik,tjk->ij", Yi_t, Wi_t
@@ -530,14 +529,11 @@ def _bundle_adjust_iterative_impl(
                 )
             return pack_c, Vinv, bp, diagVt, part
 
-        # Chunk only past the single-shot memory envelope (~1.1M slots ~
-        # Piccadilly x1.7): the scan serializes the build and costs ~4x in
-        # lost fusion at sizes that fit, but is what makes Trafalgar-scale
-        # problems (1.5M+ slots) fit in HBM at all. Chunk-size sweep at
-        # Trafalgar scale (250k tracks, 30 LM iters, v5e): TC=16384
-        # 392 ms/iter, TC=32768 283 ms/iter (fewer serialization points),
-        # TC=65536 399 ms/iter (intermediates blow the HBM envelope
-        # again) — 32768 is the sweet spot and the preferred candidate.
+        # Chunk only past the single-shot memory envelope
+        # (_SCAN_SLOT_THRESHOLD): the scan serializes the build and loses
+        # fusion at sizes that fit, but bounds the intermediates of
+        # Trafalgar-scale problems (1.5M+ slots). The candidate chunk sizes
+        # were picked on another accelerator and are untuned on the H100.
         TC = T
         if T * L > _SCAN_SLOT_THRESHOLD:
             for cand in (32768, 16384, 8192):
@@ -591,9 +587,8 @@ def _bundle_adjust_iterative_impl(
         F = pack.shape[-1]
         njc = 12 + (2 * Fi if joint_intr else 0)
         Fred = F - njc  # columns that feed the view reduction
-        # Pad the packed row to a 64-float boundary: TPU row gathers run
-        # ~4.5x faster on 256-byte-aligned rows (measured 15 ms vs 70 ms
-        # for a [1M, 54] f32 gather on v5e).
+        # Pad the packed row to a 64-float (256-byte) boundary so each
+        # gathered row is aligned. Untuned on the H100.
         Fpad = -(-F // 64) * 64
         if Fpad != F:
             pack = jnp.pad(pack, ((0, 0), (0, 0), (0, Fpad - F)))
@@ -665,7 +660,7 @@ def _bundle_adjust_iterative_impl(
         if use_coarse:
             # Coarse level: Sc = R^T S~ R materialized exactly at Vc
             # resolution with the dense-Schur placement product, then
-            # Cholesky-factored (6Vc is a few hundred — trivial on MXU).
+            # Cholesky-factored (6Vc is a few hundred — trivial as dense work).
             Nc = 6 * Vc
             # Diagonal blocks: the (sampled, scaled) obs U aggregate from
             # the build scan plus the EXACT damping/frozen/ridge/prior

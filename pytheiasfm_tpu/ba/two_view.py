@@ -1,6 +1,6 @@
 """Two-view bundle adjustment and epipolar refinement.
 
-TPU-native equivalents of
+Batched equivalents of
 `/root/reference/src/theia/sfm/bundle_adjustment/bundle_adjust_two_views.h`:
   - ``BundleAdjustTwoViews``          (`:64` — joint pose+points two-view BA)
   - ``BundleAdjustTwoViewsAngular``   (`:79` — angular epipolar error on the

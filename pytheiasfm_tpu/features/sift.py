@@ -5,7 +5,7 @@ Replaces the OpenCV SIFT the reference's Python pipelines call
 with an on-device implementation:
 
   pyramid     separable Gaussian convolutions (`lax.conv_general_dilated`)
-              over a fixed octave/scale grid — static shapes, MXU/VPU work
+              over a fixed octave/scale grid — static shapes, dense elementwise/matmul work
   detection   vectorized 26-neighbor DoG extrema + contrast and edge
               (Hessian-ratio) gates, top-K per octave via `lax.top_k`
   descriptor  per-keypoint 16x16 gradient patches (batched dynamic_slice),

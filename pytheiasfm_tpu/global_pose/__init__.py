@@ -1,6 +1,6 @@
 """Global pose estimation: rotation averaging + position averaging.
 
-TPU-native re-design of
+Batched re-design of
 `/root/reference/src/theia/sfm/global_pose_estimation/`. Every estimator is
 a pure function over flat edge arrays (from `ViewGraph.edge_arrays`); the
 sparse linear algebra is operator-form CG with gather/segment-sum matvecs.

@@ -545,7 +545,7 @@ def estimate_positions(
 
     if estimator_type == GlobalPositionEstimatorType.NONLINEAR:
         # Reference initializes randomly (`nonlinear_position_estimator.h:97`)
-        # then LM; LUD makes a far better TPU-native init.
+        # then LM; LUD makes a far better init.
         init = least_unsquared_deviation_positions(
             jnp.asarray(ei), jnp.asarray(ej), t_world, jnp.asarray(free), V
         )

@@ -1,6 +1,6 @@
 """Triplet baseline ratios from triangulated feature depths.
 
-TPU-native re-design of `/root/reference/src/theia/sfm/global_pose_estimation/
+Batched re-design of `src/theia/sfm/global_pose_estimation/
 compute_triplet_baseline_ratios.{h,cc}` (decl `:48`): each relative pose in a
 view triplet (1-2, 1-3, 2-3) has unit-norm baseline; triangulating features
 common to all three views recovers consistent relative scales as depth

@@ -1,7 +1,7 @@
 """Feature matching — layer 8 of the reference
 (`/root/reference/src/theia/matching/`, SURVEY §2.7).
 
-Descriptor matching is the MXU showcase: every image pair's distance matrix
+Descriptor matching is matmul-shaped: every image pair's distance matrix
 is one matmul; Lowe's ratio and the symmetric cross-check are row/column
 top-2 reductions fused around it. Pairs batch along a leading axis and
 shard across devices.

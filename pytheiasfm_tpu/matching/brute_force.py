@@ -4,7 +4,7 @@ Re-design of `/root/reference/src/theia/matching/
 brute_force_feature_matcher.cc:48-107` (+ `distance.h:48` L2,
 `feature_matcher_utils.h:45` IntersectMatches). The reference loops each
 descriptor against every other with `std::partial_sort`; here the L2
-distance matrix is ONE matmul (bf16 on the MXU with f32 accumulation —
+distance matrix is ONE matmul (bf16 operands with f32 accumulation —
 squared-L2 via the (a-b)^2 = |a|^2 + |b|^2 - 2ab expansion), Lowe's ratio is
 a row top-2 reduction, and the symmetric cross-check compares row/column
 argmins. A pair batch vmaps along a leading axis and shards across devices.
@@ -17,7 +17,10 @@ from functools import partial
 import jax
 import jax.numpy as jnp
 
+from ..utils import counters
+
 __all__ = [
+    "choose_matcher",
     "match_descriptor_pair",
     "match_descriptors_batch",
     "match_descriptors_batch_auto",
@@ -27,7 +30,7 @@ _INF = jnp.inf
 
 
 def _distance_matrix(d1, d2, use_bf16: bool):
-    """Squared-L2 distances [N1, N2] with the matmul on the MXU."""
+    """Squared-L2 distances [N1, N2] as one matmul."""
     if use_bf16:
         prod = jax.lax.dot_general(
             d1.astype(jnp.bfloat16),
@@ -122,7 +125,15 @@ def match_descriptors_batch(
     return jax.vmap(one)(d1, d2, mask1, mask2)
 
 
-_PALLAS_FALLBACK_WARNED = False
+def choose_matcher(num_descriptors: int, backend: str | None = None) -> str:
+    """Which matcher `match_descriptors_batch_auto` runs: "triton" (the
+    fused kernel of `pallas_matcher.py`) on the GPU when the padded
+    descriptor count is a power of two >= 128, "xla" otherwise."""
+    backend = backend or jax.default_backend()
+    N = num_descriptors
+    if backend == "gpu" and N >= 128 and (N & (N - 1)) == 0:
+        return "triton"
+    return "xla"
 
 
 def match_descriptors_batch_auto(
@@ -134,37 +145,20 @@ def match_descriptors_batch_auto(
     use_lowes_ratio: bool = True,
     keep_only_symmetric: bool = True,
 ):
-    """Backend dispatch: the Pallas streaming kernel on TPU (fused
-    distance-matmul + both-direction top-2 in VMEM, ~5x the XLA path on a
-    v5e), the XLA matcher elsewhere. This is the entry the pipeline
-    (`matching/matcher.py`) uses."""
-    N = d1.shape[1]
-    on_tpu = jax.default_backend() not in ("cpu",)
-    # The streaming kernel tiles N over its grid: pow-2 padded N >= 128
-    # (the matcher pads to pow2 already) keeps the tile math exact.
-    if on_tpu and N >= 128 and (N & (N - 1)) == 0:
+    """Backend dispatch (`choose_matcher`): the fused Triton kernel on the
+    GPU, the XLA matcher elsewhere. Each call bumps the counter
+    `matcher_<choice>`. This is the entry the pipeline
+    (`matching/matcher.py`) uses. A kernel failure raises."""
+    choice = choose_matcher(d1.shape[1])
+    counters.bump(f"matcher_{choice}")
+    if choice == "triton":
         from .pallas_matcher import match_descriptors_batch_pallas
 
-        try:
-            return match_descriptors_batch_pallas(
-                d1, d2, mask1, mask2, lowes_ratio,
-                use_lowes_ratio=use_lowes_ratio,
-                keep_only_symmetric=keep_only_symmetric,
-            )
-        except Exception as exc:  # Mosaic unavailable/failed: XLA fallback.
-            # Loud, once per process: a silent fallback would hide real
-            # kernel regressions as a quiet performance change.
-            global _PALLAS_FALLBACK_WARNED
-            if not _PALLAS_FALLBACK_WARNED:
-                _PALLAS_FALLBACK_WARNED = True
-                from ..utils.log import logger
-
-                logger.warning(
-                    "Pallas matcher failed (%s: %s) — falling back to the "
-                    "XLA matcher for this process",
-                    type(exc).__name__,
-                    exc,
-                )
+        return match_descriptors_batch_pallas(
+            d1, d2, mask1, mask2, lowes_ratio,
+            use_lowes_ratio=use_lowes_ratio,
+            keep_only_symmetric=keep_only_symmetric,
+        )
     return match_descriptors_batch(
         d1, d2, mask1, mask2, lowes_ratio,
         use_lowes_ratio=use_lowes_ratio,

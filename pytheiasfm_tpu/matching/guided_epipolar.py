@@ -1,8 +1,8 @@
 """Guided epipolar matching: extra correspondences along epipolar lines.
 
 Re-design of `/root/reference/src/theia/matching/guided_epipolar_matcher.h:53`.
-The reference accelerates the epipolar-line search with image grids; on TPU
-the full [N1, N2] point-to-line distance matrix is cheaper than building
+The reference accelerates the epipolar-line search with image grids; on an
+accelerator the full [N1, N2] point-to-line distance matrix is cheaper than building
 grids: mask it by the epipolar band, add the descriptor-distance matrix,
 and run the usual top-2 ratio + symmetry reductions.
 """

@@ -1,33 +1,23 @@
-"""Pallas streaming descriptor matcher — the flagship TPU kernel.
+"""Fused descriptor matcher: a Pallas kernel lowered through Triton.
 
-The XLA matcher (`brute_force.py`) materializes the [N, N] squared-distance
-matrix in HBM twice over (forward + transposed top-2), so at 4096x4096 it is
-HBM-bandwidth-bound: 64 MB of distances written and re-read per direction
-against only ~4 GFLOP of matmul. This kernel fuses the distance matmul with
-BOTH direction top-2 reductions inside VMEM — flash-attention-style
-streaming — so HBM traffic drops to the descriptors plus six [N] vectors
-(~250x less). Measured on a v5e at 4096x4096x128-D, batch 8, with
-on-device dependency-loop timing: ~17-20 TFLOP/s of distance matmul
-(~4000+ image pairs/s, tiles 512x4096, bf16 descriptors) vs ~0.5 TFLOP/s
-for the XLA path.
+The XLA matcher (`brute_force.py`) builds the whole [N, N] f32 distance
+matrix per pair (64 MB at N=4096), then reads it again for the row top-2
+and once more, transposed, for the column top-2. That is a few hundred MB
+of device-memory traffic per pair for ~4.3 GFLOP of bf16 matmul, so the
+path is bound by memory, not by the tensor cores. This kernel fuses the
+distance matmul with both top-2 reductions so the [N, N] matrix never
+leaves the SM.
 
-Roofline note (`tools/exp_matcher_roofline.py`): at K=128 contraction
-depth the MXU's own output rate caps the PURE MATMUL at ~30 TF/s on v5e
-(throughput scales linearly in K: 128->30, 256->50, 512->78 TF/s
-measured), so the nameplate 197 TF/s is not the relevant bound for 128-D
-descriptors. This kernel runs at ~70% of the K=128 bound; the remainder
-is the six exact top-2/argmin VPU reductions, which MXU/VPU
-double-buffered pipelining schedules did not hide (three schedules
-measured, all within noise of this serial fusion).
-
-Per grid step (pair p, row-tile i, col-tile j; j minor):
-  1. dist tile [TI, TJ] = |d1|^2 + |d2|^2 - 2 d1 d2^T   (bf16 MXU matmul,
-     f32 accumulation — same numerics as the XLA path)
-  2. row-wise tile top-2 + argmin, merged into carried per-row accumulators
-  3. col-wise tile top-2 + argmin, merged into carried per-column
-     accumulators (scratch [N], reinitialized per pair)
-  4. at the last j tile the row results are written; at the last (i, j)
-     step the column results are written.
+Layout (grid over `(pair, row tile)`, no cross-program carry):
+  1. each program loads its [TI, D] bf16 row tile once and loops over the
+     [TJ, D] column tiles of the other image in-kernel;
+  2. dist tile [TI, TJ] = |d1|^2 + |d2|^2 - 2 d1 d2^T  (bf16 operands,
+     f32 accumulation — the XLA path's numerics);
+  3. the row top-2 + argmin is merged into loop-carried registers and
+     written once at the end;
+  4. the column top-2 + argmin of this program's TI rows is written, per
+     column, into a [P, N/TI, N] partial buffer; `merge_column_partials`
+     (plain XLA) then reduces the partials over the row-tile axis.
 
 Lowe's ratio + symmetric cross-check run on the [P, N] outputs in XLA
 (identical semantics to `brute_force.match_descriptor_pair`).
@@ -43,194 +33,156 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pltriton
 
-__all__ = ["match_descriptors_batch_pallas", "streaming_top2"]
+__all__ = [
+    "DEFAULT_TILES",
+    "match_descriptors_batch_pallas",
+    "merge_column_partials",
+    "streaming_top2",
+]
 
 _BIG = 3.4e38  # sentinel "infinity" that survives arithmetic (python float
 # so the kernel closes over a compile-time constant, not a traced array)
 
-
-def _tile_top2_rows(dist, col0, TJ):
-    """Row-wise (m1, m2, arg1-global) of a [TI, TJ] tile."""
-    m1 = jnp.min(dist, axis=1)
-    cols = jax.lax.broadcasted_iota(jnp.int32, dist.shape, 1)
-    is_min = dist == m1[:, None]
-    arg1 = jnp.min(jnp.where(is_min, cols, TJ), axis=1)
-    masked = jnp.where(cols == arg1[:, None], _BIG, dist)
-    m2 = jnp.min(masked, axis=1)
-    return m1, m2, (arg1 + col0).astype(jnp.int32)
+# (tile_i, tile_j, num_warps, num_stages): the fastest of the sweep in
+# `tools/tune_matcher.py` on an H100 at 4096x4096x128, 8 pairs (PERF.md).
+DEFAULT_TILES = (32, 128, 2, 2)
 
 
-def _tile_top2_cols(dist, row0, TI):
-    """Column-wise (m1, m2, arg1-global) of a [TI, TJ] tile — reduces over
-    axis 0 directly so the tile is never transposed (a [TI, TJ] relayout
-    per grid step was ~30% of the kernel's VPU time)."""
-    m1 = jnp.min(dist, axis=0)
-    rows = jax.lax.broadcasted_iota(jnp.int32, dist.shape, 0)
-    is_min = dist == m1[None, :]
-    arg1 = jnp.min(jnp.where(is_min, rows, TI), axis=0)
-    masked = jnp.where(rows == arg1[None, :], _BIG, dist)
-    m2 = jnp.min(masked, axis=0)
-    return m1, m2, (arg1 + row0).astype(jnp.int32)
-
-
-def _merge_top2(b1, b2, a1, m1, m2, marg):
-    """Merge carried (b1 <= b2, arg a1) with tile (m1 <= m2, arg marg)."""
-    nb1 = jnp.minimum(b1, m1)
-    na1 = jnp.where(m1 < b1, marg, a1)
-    nb2 = jnp.minimum(jnp.maximum(b1, m1), jnp.minimum(b2, m2))
-    return nb1, nb2, na1
+def _top2(dist, axis):
+    """(min, second min, argmin) of `dist` along `axis`; ties go to the
+    lowest index, as `lax.top_k` does in the XLA path."""
+    arg = jax.lax.argmin(dist, axis, jnp.int32)
+    m1 = jnp.min(dist, axis=axis)
+    idx = jax.lax.broadcasted_iota(jnp.int32, dist.shape, axis)
+    hit = idx == jnp.expand_dims(arg, axis)
+    m2 = jnp.min(jnp.where(hit, _BIG, dist), axis=axis)
+    return m1, m2, arg
 
 
 def _matcher_kernel(
-    d1_ref, d2t_ref, a1_ref, a2_ref,
-    fb1_ref, fb2_ref, fa_ref, rb1_ref, rb2_ref, ra_ref,
-    s_fb1, s_fb2, s_fa, s_rb1, s_rb2, s_ra,
+    d1_ref, d2_ref, a1_ref, a2_ref,
+    fb1_ref, fb2_ref, fa_ref, cb1_ref, cb2_ref, ca_ref,
+    *, tile_j,
 ):
-    p = pl.program_id(0)
-    i = pl.program_id(1)
-    j = pl.program_id(2)
-    nI = pl.num_programs(1)
-    nJ = pl.num_programs(2)
-    TI = d1_ref.shape[1]
-    TJ = d2t_ref.shape[2]
+    TI = d1_ref.shape[0]
+    N = d2_ref.shape[0]
+    TJ = tile_j
+    row0 = pl.program_id(1) * TI
+    x = d1_ref[...]  # [TI, D] bf16, loaded once
+    a1 = a1_ref[...]  # [TI] f32, +BIG on masked rows
 
-    @pl.when(j == 0)
-    def _():  # new row tile: reset forward accumulators
-        s_fb1[:] = jnp.full((1, TI), _BIG, jnp.float32)
-        s_fb2[:] = jnp.full((1, TI), _BIG, jnp.float32)
-        s_fa[:] = jnp.zeros((1, TI), jnp.int32)
+    def body(j, carry):
+        b1, b2, ba = carry
+        cols = pl.ds(j * TJ, TJ)
+        prod = pl.dot(
+            x, d2_ref[cols, :], trans_b=True,
+            precision=jax.lax.Precision.DEFAULT,
+        )  # [TI, TJ] f32
+        dist = jnp.maximum(a1[:, None] + a2_ref[cols][None, :] - 2.0 * prod, 0.0)
+        # Masked rows/columns carry +BIG norms, so their distances stay
+        # >= ~BIG (or inf) and lose every comparison.
+        m1, m2, arg = _top2(dist, 1)
+        nb1 = jnp.minimum(b1, m1)
+        nb2 = jnp.minimum(jnp.maximum(b1, m1), jnp.minimum(b2, m2))
+        na = jnp.where(m1 < b1, arg + j * TJ, ba)
+        c1, c2, carg = _top2(dist, 0)
+        cb1_ref[cols] = c1
+        cb2_ref[cols] = c2
+        ca_ref[cols] = carg + row0
+        return nb1, nb2, na
 
-    @pl.when(i == 0)
-    def _():  # new pair: reset this column slice of reverse accumulators
-        s_rb1[0, pl.ds(j * TJ, TJ)] = jnp.full((TJ,), _BIG, jnp.float32)
-        s_rb2[0, pl.ds(j * TJ, TJ)] = jnp.full((TJ,), _BIG, jnp.float32)
-        s_ra[0, pl.ds(j * TJ, TJ)] = jnp.zeros((TJ,), jnp.int32)
-
-    a1 = a1_ref[p, pl.ds(i * TI, TI)]
-    a2 = a2_ref[p, pl.ds(j * TJ, TJ)]
-    # d2 arrives pre-transposed [D, TJ] so the bf16 MXU matmul is a plain
-    # ((1,),(0,)) contraction (Mosaic rejects rhs-contracted bf16 matmuls).
-    # Descriptors arrive ALREADY bf16 (halves their HBM traffic).
-    prod = jax.lax.dot_general(
-        d1_ref[0],
-        d2t_ref[0],
-        (((1,), (0,)), ((), ())),
-        precision=jax.lax.Precision.DEFAULT,
-        preferred_element_type=jnp.float32,
-    )  # [TI, TJ]
-    dist = jnp.maximum(a1[:, None] + a2[None, :] - 2.0 * prod, 0.0)
-    # Mask sentinels need no extra pass: a1/a2 carry +BIG on masked rows,
-    # and BIG + finite - 2ab stays ~BIG in f32 (the |2ab| term of unit
-    # descriptors is O(1)), so masked entries dominate every comparison.
-
-    # Forward (rows).
-    m1, m2, marg = _tile_top2_rows(dist, j * TJ, TJ)
-    nb1, nb2, na1 = _merge_top2(
-        s_fb1[0], s_fb2[0], s_fa[0], m1, m2, marg
+    init = (
+        jnp.full((TI,), _BIG, jnp.float32),
+        jnp.full((TI,), _BIG, jnp.float32),
+        jnp.zeros((TI,), jnp.int32),
     )
-    s_fb1[0] = nb1
-    s_fb2[0] = nb2
-    s_fa[0] = na1
-
-    # Reverse (columns) — axis-0 reduction, no transpose.
-    r1, r2, rarg = _tile_top2_cols(dist, i * TI, TI)
-    ob1 = s_rb1[0, pl.ds(j * TJ, TJ)]
-    ob2 = s_rb2[0, pl.ds(j * TJ, TJ)]
-    oa = s_ra[0, pl.ds(j * TJ, TJ)]
-    nb1, nb2, na1 = _merge_top2(ob1, ob2, oa, r1, r2, rarg)
-    s_rb1[0, pl.ds(j * TJ, TJ)] = nb1
-    s_rb2[0, pl.ds(j * TJ, TJ)] = nb2
-    s_ra[0, pl.ds(j * TJ, TJ)] = na1
-
-    @pl.when(j == nJ - 1)
-    def _():  # row tile complete
-        fb1_ref[p, pl.ds(i * TI, TI)] = s_fb1[0]
-        fb2_ref[p, pl.ds(i * TI, TI)] = s_fb2[0]
-        fa_ref[p, pl.ds(i * TI, TI)] = s_fa[0]
-
-    @pl.when((i == nI - 1) & (j == nJ - 1))
-    def _():  # pair complete: flush reverse accumulators
-        rb1_ref[p, :] = s_rb1[0]
-        rb2_ref[p, :] = s_rb2[0]
-        ra_ref[p, :] = s_ra[0]
+    b1, b2, ba = jax.lax.fori_loop(0, N // TJ, body, init)
+    fb1_ref[...] = b1
+    fb2_ref[...] = b2
+    fa_ref[...] = ba
 
 
 @functools.partial(
-    jax.jit, static_argnames=("tile_i", "tile_j", "interpret")
+    jax.jit,
+    static_argnames=(
+        "tile_i", "tile_j", "num_warps", "num_stages", "interpret",
+    ),
 )
 def streaming_top2(
-    d1, d2t, a1, a2, tile_i: int = 512, tile_j: int = 4096,
+    d1, d2, a1, a2,
+    tile_i: int = DEFAULT_TILES[0],
+    tile_j: int = DEFAULT_TILES[1],
+    num_warps: int = DEFAULT_TILES[2],
+    num_stages: int = DEFAULT_TILES[3],
     interpret: bool = False,
 ):
     """Fused both-direction top-2 over squared-L2 distances.
 
-    d1 [P, N, D], d2t [P, D, N] (D a multiple of 128, N a multiple of the
-    tiles); a1/a2
-    [P, N] = |d|^2 with +BIG on masked rows. Returns (fwd_best1, fwd_best2,
-    fwd_arg [P, N] into d2, rev_best1, rev_best2, rev_arg [P, N] into d1).
+    d1, d2 [P, N, D] bf16 (N and D powers of two, D >= 16); a1/a2 [P, N]
+    = |d|^2 with +BIG on masked rows. Returns (fwd_best1, fwd_best2,
+    fwd_arg [P, N] into d2, and the column partials cb1, cb2, ca
+    [P, N/TI, N] for `merge_column_partials`).
     """
     P, N, D = d1.shape
     TI, TJ = min(tile_i, N), min(tile_j, N)
-    del D
-    D = d2t.shape[1]
-    grid = (P, N // TI, N // TJ)
+    nI = N // TI
     f32 = jnp.float32
-    out_shape = [
-        jax.ShapeDtypeStruct((P, N), f32),
-        jax.ShapeDtypeStruct((P, N), f32),
-        jax.ShapeDtypeStruct((P, N), jnp.int32),
-        jax.ShapeDtypeStruct((P, N), f32),
-        jax.ShapeDtypeStruct((P, N), f32),
-        jax.ShapeDtypeStruct((P, N), jnp.int32),
-    ]
-    # a1/a2 and the six [P, N] outputs are tiny next to the descriptors, so
-    # they ride as whole arrays in VMEM (TPU block tiling requires the last
-    # two block dims be 8/128-divisible or full — (1, TI) blocks are not).
-    full = pl.BlockSpec(
-        (P, N), lambda p, i, j: (0, 0), memory_space=pltpu.VMEM
-    )
-    out_specs = [full] * 6
+    row = pl.BlockSpec((None, TI), lambda p, i: (p, i))
+    part = pl.BlockSpec((None, None, N), lambda p, i: (p, i, 0))
     return pl.pallas_call(
-        _matcher_kernel,
-        grid=grid,
+        functools.partial(_matcher_kernel, tile_j=TJ),
+        grid=(P, nI),
         in_specs=[
-            pl.BlockSpec(
-                (1, TI, D), lambda p, i, j: (p, i, 0),
-                memory_space=pltpu.VMEM,
-            ),
-            pl.BlockSpec(
-                (1, D, TJ), lambda p, i, j: (p, 0, j),
-                memory_space=pltpu.VMEM,
-            ),
-            full,
-            full,
+            pl.BlockSpec((None, TI, D), lambda p, i: (p, i, 0)),
+            pl.BlockSpec((None, N, D), lambda p, i: (p, 0, 0)),
+            row,
+            pl.BlockSpec((None, N), lambda p, i: (p, 0)),
         ],
-        out_specs=out_specs,
-        out_shape=out_shape,
-        scratch_shapes=[
-            pltpu.VMEM((1, TI), f32),
-            pltpu.VMEM((1, TI), f32),
-            pltpu.VMEM((1, TI), jnp.int32),
-            pltpu.VMEM((1, N), f32),
-            pltpu.VMEM((1, N), f32),
-            pltpu.VMEM((1, N), jnp.int32),
+        out_specs=[row, row, row, part, part, part],
+        out_shape=[
+            jax.ShapeDtypeStruct((P, N), f32),
+            jax.ShapeDtypeStruct((P, N), f32),
+            jax.ShapeDtypeStruct((P, N), jnp.int32),
+            jax.ShapeDtypeStruct((P, nI, N), f32),
+            jax.ShapeDtypeStruct((P, nI, N), f32),
+            jax.ShapeDtypeStruct((P, nI, N), jnp.int32),
         ],
-        interpret=interpret,
-        cost_estimate=pl.CostEstimate(
-            flops=2 * P * N * N * D,
-            bytes_accessed=P * (2 * N * D * 4 + 6 * N * 4),
-            transcendentals=0,
+        backend="triton",
+        compiler_params=pltriton.CompilerParams(
+            num_warps=num_warps, num_stages=num_stages
         ),
-    )(d1, d2t, a1, a2)
+        interpret=interpret,
+        name="fused_top2_matcher",
+    )(d1, d2, a1, a2)
+
+
+def merge_column_partials(cb1, cb2, ca):
+    """Reduce per-row-tile column top-2 partials [P, K, N] over K.
+
+    The global best is the smallest tile best (first tile on ties, hence
+    the lowest row index); the global second best is the smaller of the
+    other tiles' bests and the winning tile's own second best.
+    Returns (best1, best2, arg) [P, N]."""
+    k = jnp.argmin(cb1, axis=1)[:, None, :]
+    best1 = jnp.take_along_axis(cb1, k, axis=1)[:, 0]
+    arg = jnp.take_along_axis(ca, k, axis=1)[:, 0]
+    own2 = jnp.take_along_axis(cb2, k, axis=1)[:, 0]
+    tiles = jax.lax.broadcasted_iota(jnp.int32, cb1.shape, 1)
+    other = jnp.min(jnp.where(tiles == k, _BIG, cb1), axis=1)
+    return best1, jnp.minimum(own2, other), arg
+
+
+def _pow2_at_least(n: int, lo: int) -> int:
+    return max(lo, 1 << (n - 1).bit_length())
 
 
 @functools.partial(
     jax.jit,
     static_argnames=(
         "use_lowes_ratio", "keep_only_symmetric", "tile_i", "tile_j",
-        "interpret",
+        "num_warps", "num_stages", "interpret",
     ),
 )
 def match_descriptors_batch_pallas(
@@ -241,19 +193,22 @@ def match_descriptors_batch_pallas(
     lowes_ratio,
     use_lowes_ratio: bool = True,
     keep_only_symmetric: bool = True,
-    tile_i: int = 512,
-    tile_j: int = 4096,
+    tile_i: int = DEFAULT_TILES[0],
+    tile_j: int = DEFAULT_TILES[1],
+    num_warps: int = DEFAULT_TILES[2],
+    num_stages: int = DEFAULT_TILES[3],
     interpret: bool = False,
 ):
     """Drop-in equivalent of `brute_force.match_descriptors_batch` running
-    the fused streaming kernel. Returns (match_idx [P, N], distance [P, N]).
+    the fused kernel (N must be a power of two). Returns
+    (match_idx [P, N], distance [P, N]).
 
-    Norms are computed in f32; descriptors are shipped to the kernel in
-    bf16 (the same precision the MXU matmul uses either way), halving the
-    dominant HBM traffic.
+    Norms are computed in f32; descriptors reach the kernel in bf16 (the
+    precision the XLA path's matmul uses either way), zero-padded along D
+    to a power of two >= 16.
     """
     P, N, D = d1.shape
-    Dp = -(-D // 128) * 128
+    Dp = _pow2_at_least(D, 16)
     if Dp != D:
         pad = [(0, 0), (0, 0), (0, Dp - D)]
         d1 = jnp.pad(d1, pad)
@@ -263,13 +218,15 @@ def match_descriptors_batch_pallas(
     a1 = jnp.sum(d1 * d1, axis=-1) + jnp.where(mask1, 0.0, _BIG)
     a2 = jnp.sum(d2 * d2, axis=-1) + jnp.where(mask2, 0.0, _BIG)
 
-    fb1, fb2, fa, rb1, rb2, ra = streaming_top2(
+    fb1, fb2, fa, cb1, cb2, ca = streaming_top2(
         d1.astype(jnp.bfloat16),
-        jnp.swapaxes(d2, 1, 2).astype(jnp.bfloat16),
+        d2.astype(jnp.bfloat16),
         a1,
         a2,
         tile_i=tile_i,
         tile_j=tile_j,
+        num_warps=num_warps,
+        num_stages=num_stages,
         interpret=interpret,
     )
 
@@ -278,6 +235,7 @@ def match_descriptors_batch_pallas(
         ratio2 = jnp.asarray(lowes_ratio, jnp.float32) ** 2
         ok &= fb1 < ratio2 * fb2
     if keep_only_symmetric:
+        rb1, rb2, ra = merge_column_partials(cb1, cb2, ca)
         ok_r = rb1 < _BIG / 2
         if use_lowes_ratio:
             ok_r &= rb1 < ratio2 * rb2

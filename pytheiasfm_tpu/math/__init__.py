@@ -1,6 +1,6 @@
 """Math layer: graph algorithms, robust linear solvers, probability tests.
 
-TPU-native re-design of `/root/reference/src/theia/math/` — the sparse
+Batched re-design of `src/theia/math/` — the sparse
 direct solvers (Eigen SimplicialLDLT, `matrix/sparse_cholesky_llt.h:57`)
 become operator-based conjugate-gradient solves whose matvecs are
 gather/segment-sum kernels, and the ADMM solvers (`l1_solver.h:87`,

@@ -3,7 +3,7 @@
 Re-design of `/root/reference/src/theia/math/l1_solver.h:87` (ADMM
 least-absolute-deviation) and the IRLS refinement inside
 `robust_rotation_estimator.h:127-140`. The reference factorizes a sparse
-normal matrix once with SimplicialLDLT; on TPU the matrix never
+normal matrix once with SimplicialLDLT; here the matrix never
 materializes — callers pass `matvec` closures (gather + segment-sum
 kernels) and every solve is preconditioned conjugate gradient. All loops
 are fixed-trip `lax`-friendly so the whole solver jits.
@@ -70,7 +70,7 @@ def admm_l1(
     thresholding with 1/rho; u is the scaled dual.
 
     `normal_matvec`: optional v -> AᵀA v for the inner CG. The reference
-    pre-factors AᵀA once (`l1_solver.h:87`); the TPU analogue is a
+    pre-factors AᵀA once (`l1_solver.h:87`); the analogue here is a
     pre-MATERIALIZED normal matrix whose matvec touches |AᵀA| bytes
     instead of 2|A| — for the rotation-averaging incidence operator that
     is E/V-fold less HBM traffic on the solver's hottest loop.

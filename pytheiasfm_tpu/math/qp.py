@@ -1,6 +1,6 @@
 """Quadratic programming and constrained L1 solvers (ADMM).
 
-TPU-native equivalents of:
+Batched equivalents of:
   - `theia::QPSolver` (`/root/reference/src/theia/math/qp_solver.h:65`):
     min 1/2 xᵀPx + qᵀx + r  s.t.  l <= x <= u  (box QP, ADMM).
   - `theia::ConstrainedL1Solver`

@@ -1,6 +1,6 @@
 """Block-structured SDP solvers (Burer-Monteiro / Riemannian staircase).
 
-TPU-native equivalents of the reference's SDP family
+Batched equivalents of the reference's SDP family
 (`/root/reference/src/theia/math/`):
   - `SDPSolver` base + options        (sdp_solver.h:51, solver_options.h:43)
   - `BCMSDPSolver` / `RBRSDPSolver`   (bcm_sdp_solver.h:49, rbr_sdp_solver.h:66)
@@ -15,7 +15,7 @@ sequential (one 3-row block at a time) and its Riemannian staircase leans on
 Spectra's Lanczos. Here the factorized (Burer-Monteiro) problem
   min tr(Yᵀ C Y),  Y ∈ (St(r,3))^n   (each 3×r block has orthonormal rows)
 is solved with **parallel Riemannian projected-gradient iterations**: the
-gradient 2·C·Y is one [3n,3n]×[3n,r] matmul (MXU), the retraction is a
+gradient 2·C·Y is one [3n,3n]×[3n,r] matmul, the retraction is a
 batched 3×r polar decomposition (batched SVD), and a 3-candidate step-size
 line search keeps it monotone — every step is data-parallel over all blocks.
 The staircase escapes saddle points by rank lifting with the most negative
@@ -84,7 +84,7 @@ def solve_block_sdp(C, Y0, num_blocks: int, rank: int, iters: int = 200):
 
     def body(carry, _):
         Y, step = carry
-        G = C @ Y  # Euclidean gradient / 2, [3n, r] — MXU matmul.
+        G = C @ Y  # Euclidean gradient / 2, [3n, r] — matmul.
         f0 = jnp.einsum("ik,ik->", Y, G)
 
         def try_step(s):

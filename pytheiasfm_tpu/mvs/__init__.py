@@ -2,7 +2,7 @@
 
 The reference computes depth maps in Python (torch) and only hosts view
 selection in C++ (`mvs/view_selection_mvsnet.h:50`); this package provides
-the TPU-batched equivalent.
+the device-batched equivalent.
 """
 
 from .view_selection import pairwise_view_scores, view_selection_mvsnet

@@ -11,7 +11,7 @@ at p by the two camera centers (Yao et al., "MVSNet", ECCV 2018):
 The reference loops view pairs and set-intersects per-view track lists; here
 the whole computation is one batched device program: a [V, T] incidence
 matrix (covisibility = one bf16-able matmul) and per-track ray-angle scores
-accumulated as [T_chunk, V, V] batched outer products — MXU-shaped, chunked
+accumulated as [T_chunk, V, V] batched outer products — matmul-shaped, chunked
 over tracks to bound memory.
 """
 

@@ -5,7 +5,7 @@
 // (/root/reference/src/theia/sfm/track_builder.cc,
 //  math/graph/connected_components.h:60,
 //  sfm/filter_view_pairs_from_relative_translation.cc:165 — the MFAS
-// heuristic of Wilson & Snavely ECCV'14). The TPU build keeps the same
+// heuristic of Wilson & Snavely ECCV'14). This library keeps the same
 // split: device kernels are JAX/XLA, and these host-sequential pieces are
 // C ABI functions loaded through ctypes (pytheiasfm_tpu/native/__init__.py)
 // with pure-numpy fallbacks when the toolchain is unavailable.

@@ -1,7 +1,7 @@
 """Epipolar geometry kernels: 7/8-point F, essential-matrix utilities,
 Sampson error, focal-length recovery.
 
-TPU-native re-design of
+Batched re-design of
   /root/reference/src/theia/sfm/pose/eight_point_fundamental_matrix.{h,cc}
   /root/reference/src/theia/sfm/pose/seven_point_fundamental_matrix.{h,cc}
   /root/reference/src/theia/sfm/pose/essential_matrix_utils.{h,cc}
@@ -127,7 +127,7 @@ def seven_point_fundamental_matrix(points1, points2):
     F2 = vecs[..., :, 1].reshape(AtA.shape[:-2] + (3, 3))
 
     # det(a*F1 + (1-a)*F2) as a cubic in a: evaluate at 4 nodes and
-    # interpolate (exact — cheaper than symbolic expansion and TPU-friendly).
+    # interpolate (exact — cheaper than symbolic expansion and accelerator-friendly).
     nodes = jnp.asarray([0.0, 1.0, -1.0, 2.0], dtype=A.dtype)
     dets = jnp.stack(
         [jnp.linalg.det(n * F1 + (1.0 - n) * F2) for n in [0.0, 1.0, -1.0, 2.0]],
@@ -201,8 +201,7 @@ def decompose_essential_matrix(E: jax.Array):
     essential matrix", 1990) instead of the Hartley-Zisserman SVD: with
     E = [b]x R, bb^T = (tr(EE^T)/2) I - EE^T recovers the baseline up to
     sign and R = (cof(E) -+ [b]x E)/(b.b) the two rotations. All
-    elementwise/3x3-matmul ops — the batched 3x3 SVD this replaces cost
-    ~0.7 s for the 138k-model fountain verification batch on TPU v5e. A
+    elementwise/3x3-matmul ops instead of a batched 3x3 SVD per model. A
     Newton orthogonalization step absorbs the (near-)essential input
     error; for exactly essential E the formula is exact."""
     EEt = E @ jnp.swapaxes(E, -1, -2)

@@ -1,17 +1,17 @@
 """Batched five-point relative pose (essential matrix) solver.
 
-TPU-native equivalent of `theia::FivePointRelativePose`
+Batched equivalent of `theia::FivePointRelativePose`
 (`/root/reference/src/theia/sfm/pose/five_point_relative_pose.h:59`,
 Stewenius/Nister formulation, convention ``y^T E x = 0`` with x in image 1
 and y in image 2).
 
 The reference solves the polynomial system with symbolic Gauss-Jordan
 elimination plus a companion/action-matrix eigendecomposition — nonsymmetric
-`eig`, which XLA does not provide on TPU. This implementation re-derives the
+`eig`, which XLA does not provide on accelerators. This implementation re-derives the
 solve as dense batched linear algebra:
 
   1. The 4D nullspace of the 5x9 epipolar design matrix comes from `eigh` of
-     the 9x9 normal matrix (symmetric — TPU-supported).
+     the 9x9 normal matrix (symmetric — XLA-supported).
   2. E(x,y,z) = x X + y Y + z Z + W. The ten cubic constraints
      (det E = 0 and 2 E E^T E - tr(E E^T) E = 0) are expanded over the 20
      monomials of degree <= 3 via static product index tables (built once in
@@ -22,7 +22,7 @@ solve as dense batched linear algebra:
      univariate polynomial; its coefficients are recovered EXACTLY by
      evaluating the batched 10x10 determinant at 11 Chebyshev nodes and
      solving one 11x11 Vandermonde system (replacing symbolic elimination
-     with MXU-friendly dense ops).
+     with matmul-friendly dense ops).
   4. Real roots come from the branchless grid/bisection root finder; for
      each root the (x, y) monomial vector is the smallest right singular
      vector of C(z*).
@@ -123,7 +123,7 @@ def five_point_relative_pose(points1: jax.Array, points2: jax.Array, mask=None):
     if mask is not None:
         Q = Q * mask[..., None].astype(dtype)
     # SVD of Q directly (not eigh of Q^T Q) — halves the condition number,
-    # which matters for f32 execution on TPU.
+    # which matters for f32 execution.
     _, _, Vt = jnp.linalg.svd(Q, full_matrices=True)
     batch = Q.shape[:-2]
     X = Vt[..., -4, :].reshape(batch + (3, 3))
@@ -190,12 +190,8 @@ def five_point_relative_pose(points1: jax.Array, points2: jax.Array, mask=None):
 
     # Nullvector of C(z*) per root -> (x, y), via ridged inverse iteration
     # on the row/column-equilibrated normal matrix C^T C (batched 10x10
-    # Cholesky + two triangular solves per sweep). This replaces a batched
-    # 10x10 SVD of C that cost 2.6 s for the 13.8k-solve (=138k-root)
-    # fountain verification batch on TPU v5e (~60% of the whole solver);
-    # the iteration costs ~0.25 s at the same recovery rate (measured
-    # 198/256 vs the SVD's 200/256 on four 64-sample f32 seeds). The
-    # equilibration is what makes f32 work: row scaling leaves the
+    # Cholesky + two triangular solves per sweep) instead of a batched
+    # 10x10 SVD of C, at the same f32 recovery rate. The equilibration is what makes f32 work: row scaling leaves the
     # nullvector unchanged; column scaling D maps it to D^-1 m (undone
     # below); together they tame cond(C^T C) = cond(C)^2, worst at
     # large-|z| roots where degree-3 columns dwarf degree-0 ones — without

@@ -1,6 +1,6 @@
 """Absolute-pose solvers with unknown focal length / radial distortion.
 
-TPU-native equivalents of (`/root/reference/src/theia/sfm/pose/`):
+Batched equivalents of (`src/theia/sfm/pose/`):
   - ``FourPointPoseAndFocalLength``      (four_point_focal_length.h) — P4Pf
   - ``FivePointFocalLengthRadialDistortion``
         (five_point_focal_length_radial_distortion.h) — P5Pfr (1 or 2 k's)
@@ -9,7 +9,7 @@ TPU-native equivalents of (`/root/reference/src/theia/sfm/pose/`):
 
 The reference solves these with machine-generated Gröbner-basis eliminations
 (hundreds of lines of coefficient tables each). A Gröbner action matrix is a
-poor fit for TPUs (huge scalar expression trees, numerically brittle in f32).
+poor fit for batched accelerator code (huge scalar expression trees, numerically brittle in f32).
 Instead each solver here is a **batched candidate grid + Gauss-Newton
 variable-projection polish**:
 

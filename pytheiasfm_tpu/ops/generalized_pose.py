@@ -1,6 +1,6 @@
 """Generalized-camera and maximum-likelihood absolute pose solvers.
 
-TPU-native equivalents of (`/root/reference/src/theia/sfm/pose/`):
+Batched equivalents of (`src/theia/sfm/pose/`):
   - ``Upnp``                  (upnp.h — universal PnP for central and
                                non-central cameras, minimal + least squares)
   - ``MLPnP``                 (mlpnp.h — ML PnP with bearing covariances)
@@ -9,7 +9,7 @@ TPU-native equivalents of (`/root/reference/src/theia/sfm/pose/`):
 
 The reference uses Gröbner action matrices (UPnP: 10k LoC of generated
 tables) and a bespoke null-space QR (MLPnP). Those expression trees are
-hostile to TPU compilation; each solver here minimizes the *same* cost with
+hostile to XLA compilation; each solver here minimizes the *same* cost with
 a **variable-projection Gauss-Newton over rotation only**, batched over a
 fixed set of rotation seeds (the translation — and scale for gDLS — is
 linear given the rotation and is eliminated exactly each step). This is

@@ -1,6 +1,6 @@
 """SE(3) and Sim(3) Lie-group operations as batched pure functions.
 
-TPU-native replacement for the Sophus types the reference binds to Python
+Batched replacement for the Sophus types the reference binds to Python
 (`/root/reference/src/pytheia/math/math.cc:92,150` — `Sophus::SE3d`,
 `Sophus::Sim3d`) and uses for pose-graph Sim3 optimization
 (`sfm/transformation/align_reconstructions_pose_graph_optim.h:43`).

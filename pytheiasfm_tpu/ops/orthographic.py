@@ -1,6 +1,6 @@
 """Planar uncalibrated orthographic pose (pyTheia addition).
 
-TPU-native equivalent of `PlanarUncalibratedOrthographicPose`
+Batched equivalent of `PlanarUncalibratedOrthographicPose`
 (`/root/reference/src/theia/sfm/pose/orthographic_four_point.h:13,20`):
 pose + magnification of an orthographic camera observing a *planar* scene
 (world points with z = 0), from >= 4 correspondences.

@@ -1,10 +1,10 @@
 """Batched P3P: absolute pose from three 2D-3D correspondences.
 
-TPU-native equivalent of `theia::PoseFromThreePoints`
+Batched equivalent of `theia::PoseFromThreePoints`
 (`/root/reference/src/theia/sfm/pose/perspective_three_point.h:56`, Kneip's
 method). Here the classic Grunert distance formulation is used instead: it
 reduces to a single quartic solved in closed form (no branching), which maps
-better onto vmapped TPU execution than Kneip's intermediate-frame
+better onto vmapped execution than Kneip's intermediate-frame
 construction. The quartic coefficients below were derived symbolically
 (sympy resultant of the two Grunert ratio equations) — not transcribed.
 
@@ -56,7 +56,7 @@ def pose_from_three_points(feature_points: jax.Array, world_points: jax.Array):
     P1, P2, P3 = world_points[..., 0, :], world_points[..., 1, :], world_points[..., 2, :]
 
     # Squared side lengths and bearing cosines. Normalizing the scene scale
-    # keeps the quartic coefficients O(1) — essential for f32 on TPU.
+    # keeps the quartic coefficients O(1) — essential in f32.
     A = jnp.sum((P2 - P3) ** 2, axis=-1)  # a^2, opposite P1
     B = jnp.sum((P1 - P3) ** 2, axis=-1)  # b^2
     C = jnp.sum((P1 - P2) ** 2, axis=-1)  # c^2
@@ -124,7 +124,7 @@ def pose_from_three_points(feature_points: jax.Array, world_points: jax.Array):
     u = numer / jnp.where(safe, denom, 1.0)
 
     # 2D Newton polish of (u, v) on the original Grunert ratio equations —
-    # recovers f64-grade roots when running in f32 on TPU.
+    # recovers f64-grade roots when running in f32.
     for _ in range(4):
         g1 = Bb * (u * u + v * v - 2.0 * u * v * cab) - Ab * (
             1.0 + v * v - 2.0 * v * cbb

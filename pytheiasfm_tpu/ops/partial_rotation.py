@@ -1,6 +1,6 @@
 """Known-rotation-axis ("partial rotation") minimal pose solvers.
 
-TPU-native equivalents of the reference's known-axis family
+Batched equivalents of the reference's known-axis family
 (`/root/reference/src/theia/sfm/pose/`):
   - ``TwoPointPosePartialRotation``       (two_point_pose_partial_rotation.h)
   - ``ThreePointRelativePosePartialRotation``
@@ -11,7 +11,7 @@ TPU-native equivalents of the reference's known-axis family
 
 The reference solves each with a bespoke quaternion elimination (QR/sparse
 null-space plus quadratic/quartic in one quaternion component). Here all four
-share one TPU-first mechanism: with the rotation written in tan-half-angle
+share one accelerator-first mechanism: with the rotation written in tan-half-angle
 form about the known unit axis ``a``,
 
     R(w) = I + (2w/(1+w^2)) [a]_x + (2w^2/(1+w^2)) [a]_x^2 ,
@@ -21,7 +21,7 @@ every constraint set becomes ``G(w) y = 0`` with ``y`` the homogeneous vector
 of remaining linear unknowns (translation, scale, 1) and ``G`` polynomial in
 w. ``det G(w) = 0`` is a univariate polynomial whose coefficients we recover
 by **evaluation + interpolation**: evaluate det G at D+1 Chebyshev nodes (a
-batched determinant — pure MXU/VPU work), multiply by a precomputed inverse-
+batched determinant — pure dense elementwise/matmul work), multiply by a precomputed inverse-
 Vandermonde (trace-time numpy constant), then run the branchless real-root
 finder. Back-substitution recovers y per root. This is branch-free,
 fixed-shape, and vmaps over batches of samples — unlike the reference's

@@ -1,12 +1,12 @@
 """Batched non-minimal PnP solvers.
 
-TPU-native equivalents of the reference's n-point absolute pose family:
+Batched equivalents of the reference's n-point absolute pose family:
   `theia::DlsPnp`  (/root/reference/src/theia/sfm/pose/dls_pnp.h:61)
   `theia::SQPnP`   (/root/reference/src/theia/sfm/pose/sqpnp.h:70)
 
 The reference's DLS-PnP solves a Groebner/Macaulay polynomial system via
-nonsymmetric eigendecomposition — unavailable on TPU. Both entry points here
-share a TPU-friendly pipeline: a DLT initialization (nullspace of the 2Nx12
+nonsymmetric eigendecomposition — unavailable on accelerators. Both entry points here
+share an accelerator-friendly pipeline: a DLT initialization (nullspace of the 2Nx12
 design via symmetric `eigh`) or SQPnP-style 9x9 quadratic form, followed by
 damped Gauss-Newton on the object-space/reprojection error over SO(3)xR^3.
 This matches the reference's accuracy contract (their tests assert
@@ -166,7 +166,7 @@ def sqpnp(features, world_points, mask=None, gn_iters: int = 8):
     Parity target: `theia::SQPnP` (`sfm/pose/sqpnp.h:70`). The quadratic
     object-space formulation reduces to minimizing r^T Omega r over the 9D
     rotation vector r; we seed with the smallest eigenvector of Omega
-    (symmetric 9x9 `eigh`, TPU-native), project to SO(3), and run the same
+    (symmetric 9x9 `eigh`, XLA-native), project to SO(3), and run the same
     damped Gauss-Newton the DLT path uses (the SQP iterations of the paper
     and GN on the reprojection error converge to the same optimum on
     well-posed inputs).
@@ -233,7 +233,7 @@ def sqpnp(features, world_points, mask=None, gn_iters: int = 8):
 def dls_pnp(features, world_points, mask=None):
     """Parity shim for `theia::DlsPnp` (`dls_pnp.h:61`).
 
-    The DLS method's Macaulay eigendecomposition is not TPU-expressible; this
+    The DLS method's Macaulay eigendecomposition is not expressible in XLA; this
     returns the SQPnP-class solution, which meets the same accuracy contract
     (the reference's dls_pnp_test asserts pose recovery tolerances only).
     Returns (R [.., 1, 3, 3], position [.., 1, 3], valid [.., 1]) — a

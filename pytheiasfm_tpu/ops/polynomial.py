@@ -1,13 +1,13 @@
 """Batched polynomial utilities and real-root finding.
 
-TPU-native replacement for the reference's polynomial layer
+Batched replacement for the reference's polynomial layer
 (`/root/reference/src/theia/math/closed_form_polynomial_solver.h`,
 `find_polynomial_roots_companion_matrix.{h,cc}`,
 `find_polynomial_roots_jenkins_traub.{h,cc}`, `polynomial.{h,cc}`).
 
 The reference finds roots via companion-matrix eigendecomposition or
 Jenkins-Traub — both are branch-heavy and need nonsymmetric `eig`, which XLA
-does not provide on TPU. Here real roots are found with a fully branchless,
+does not provide on accelerators. Here real roots are found with a fully branchless,
 vmappable scheme: a homogeneous sign sweep over a tan-parameterized grid
 covering the whole real line, bisection on each sign change, then Newton
 polish. All functions accept arbitrary leading batch dimensions and return
@@ -211,7 +211,7 @@ def find_real_polynomial_roots(
     `math/find_polynomial_roots_companion_matrix.h`) restricted to real roots
     — which is all the minimal solvers consume.
 
-    Strategy (TPU-friendly, no `eig`):
+    Strategy (accelerator-friendly, no `eig`):
       1. theta-grid over (-pi/2, pi/2); z = tan(theta) covers all reals.
       2. Homogeneous sign evaluation at grid nodes (no overflow).
       3. Sign changes mark root brackets; keep the first D of them.

@@ -1,6 +1,6 @@
 """Radial-distortion homography (two-sided division model), 6-point solver.
 
-TPU-native equivalent of `SixPointRadialDistortionHomography` + helpers
+Batched equivalent of `SixPointRadialDistortionHomography` + helpers
 (`/root/reference/src/theia/sfm/pose/six_point_radial_distortion_homography.h`,
 Kukelova et al. "Radial distortion homography" CVPR 2015 formulation):
 estimate a homography H between two fisheye images together with one
@@ -12,7 +12,7 @@ u(p, l) = (x, y, 1 + l r^2),  r^2 = x^2 + y^2.
 
 Constraint per correspondence: u(p2, l2) ~ H u(p1, l1).
 
-The reference runs a Gröbner elimination; here (TPU-first) the two scalar
+The reference runs a Gröbner elimination; here (accelerator-first) the two scalar
 unknowns are handled by a **static (l1, l2) seed grid + Gauss-Newton with H
 projected out** — for fixed (l1, l2), H is the ordinary DLT solution (a
 batched 9x9 symmetric eigenproblem), and the residual is the symmetric
@@ -49,7 +49,7 @@ def _dlt_h(u1, u2):
 
     Returns H [.., 3, 3] (smallest right singular vector of the 2N x 9
     design matrix) — computed via eigh of the 9x9 normal matrix (cheap,
-    batched, TPU-friendly)."""
+    batched, accelerator-friendly)."""
     zeros = jnp.zeros_like(u1)
     x2, y2, w2 = u2[..., 0:1], u2[..., 1:2], u2[..., 2:3]
     row1 = jnp.concatenate([zeros, -w2 * u1, y2 * u1], axis=-1)  # [.., N, 9]

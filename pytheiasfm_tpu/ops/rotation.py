@@ -1,6 +1,6 @@
 """SO(3) operations on angle-axis vectors, rotation matrices and quaternions.
 
-TPU-native re-design of the reference rotation utilities
+Batched re-design of the reference rotation utilities
 (`/root/reference/src/theia/math/rotation.h:49-82` and the Ceres
 `AngleAxisRotatePoint` / `RotationMatrixToAngleAxis` routines the reference
 relies on). Everything here is a pure, batched, differentiable jnp function:

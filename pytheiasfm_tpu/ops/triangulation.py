@@ -1,6 +1,6 @@
 """Batched triangulation kernels.
 
-TPU-native re-design of `/root/reference/src/theia/sfm/triangulation/
+Batched re-design of `src/theia/sfm/triangulation/
 triangulation.{h,cc}`. Every routine is a pure function over fixed-shape
 batches with validity masks; variable numbers of observations per track are
 handled by masking rather than dynamic shapes. All methods of the reference
@@ -101,7 +101,7 @@ def triangulate_dlt(pose1, pose2, point1, point2):
         point2[..., 1:2] * pose2[..., 2, :] - pose2[..., 1, :],
     ]
     design = jnp.stack(rows, axis=-2)
-    # Smallest right singular vector via eigh of D^T D (4x4, batched, TPU-ok).
+    # Smallest right singular vector via eigh of D^T D (4x4, batched).
     dtd = jnp.swapaxes(design, -1, -2) @ design
     _, vecs = jnp.linalg.eigh(dtd)
     return vecs[..., :, 0]

@@ -8,7 +8,7 @@ where the collective placement must be pinned rather than inferred, and the
 in-suite proof that the sharded reduction matches the single-device math.
 
 The reference has no distributed backend at all (SURVEY.md §2.16: thread
-pool only); this layer is TPU-native scale-out over ICI/DCN.
+pool only); this layer is device-mesh scale-out over the interconnect.
 """
 
 from __future__ import annotations
@@ -19,10 +19,7 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, PartitionSpec as P
 
-try:  # jax>=0.4.31
-    from jax import shard_map
-except ImportError:  # pragma: no cover
-    from jax.experimental.shard_map import shard_map
+from jax import shard_map
 
 __all__ = [
     "sharded_segment_sum",

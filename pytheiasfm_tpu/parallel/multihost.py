@@ -17,7 +17,7 @@ Typical launch (one process per host):
 
 The 2-process CPU test (`tests/test_multihost.py`) exercises exactly this
 path with `xla_force_host_platform_device_count` per process — the
-documented simulation of a multi-host mesh without TPU pods.
+documented simulation of a multi-host mesh without a multi-host cluster.
 """
 
 from __future__ import annotations

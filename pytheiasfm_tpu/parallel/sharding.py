@@ -1,7 +1,7 @@
 """Device-mesh sharding for the SfM kernels.
 
 The reference's only parallelism is a thread pool (`util/threadpool.h:85`,
-SURVEY.md §2.16); the TPU-native scaling axes are:
+SURVEY.md §2.16); the scaling axes are:
 
   - the OBSERVATION axis for bundle adjustment (residual/JTJ accumulation is
     a segment-sum: shard observations, `psum` the per-view/per-track blocks

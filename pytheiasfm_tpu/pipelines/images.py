@@ -3,7 +3,7 @@
 The layer-15 canonical pipeline of the reference
 (`pytests/sfm_pipeline.py:175-287`, `pyexamples/sfm_pipeline_fountain.py:25-60`):
 images are read and features extracted host/device-side, matched and
-geometrically verified in batched TPU programs, fed through
+geometrically verified in batched device programs, fed through
 `ReconstructionBuilder` into a global/incremental/hybrid estimator. Unlike
 the reference (which shells out to OpenCV SIFT per `README.md:15-18`),
 feature extraction here is the package's own pure-JAX upright SIFT

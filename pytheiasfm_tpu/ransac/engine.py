@@ -1,4 +1,4 @@
-"""Batched RANSAC engine: the TPU-native `SampleConsensusEstimator`.
+"""Batched RANSAC engine: the batched `SampleConsensusEstimator`.
 
 Re-design of `/root/reference/src/theia/solvers/` (layer 3 of SURVEY.md):
 `SampleConsensusEstimator<ModelEstimator>` (`sample_consensus_estimator.h:147`)
@@ -6,7 +6,7 @@ and its variants `Ransac` (`ransac.h:47`), `Prosac` (`prosac.h:53`), `LMed`
 (`lmed.h:55`), `ExhaustiveRansac` (`exhaustive_ransac.h:47`).
 
 The reference runs a sequential hypothesize-and-verify loop with adaptive
-termination. On TPU the whole hypothesis budget is evaluated as ONE batched
+termination. Here the whole hypothesis budget is evaluated as ONE batched
 tensor program: sample -> vmapped minimal solve -> residuals against all data
 -> quality -> argmax, optionally followed by local-optimization (LO-RANSAC)
 rounds on the best model's inliers. Adaptive termination becomes *reported*

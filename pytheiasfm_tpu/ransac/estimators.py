@@ -3,7 +3,7 @@
 
 Each `Estimate*` function mirrors its reference namesake's model type,
 minimal solver, and error function exactly (file:line cited per function),
-but runs the whole hypothesis budget as one batched TPU program through
+but runs the whole hypothesis budget as one batched device program through
 :mod:`pytheiasfm_tpu.ransac.engine`.
 
 Conventions:

@@ -200,7 +200,7 @@ def localize_views_to_reconstruction_batch(
     key: jax.Array | None = None,
 ):
     """Localize a BATCH of views against the current reconstruction in one
-    device program — the TPU-native mapping of the reference's
+    device program — the batched mapping of the reference's
     candidate-list localization sweep (`incremental_reconstruction_
     estimator.cc:221-246`; one `LocalizeViewToReconstruction` per view
     there, one vmapped RANSAC launch here).

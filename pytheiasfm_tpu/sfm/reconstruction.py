@@ -3,7 +3,7 @@
 Re-design of `/root/reference/src/theia/sfm/reconstruction.h:66` (+ `View`
 `view.h:57`, `Track` `track.h:53`, `Feature` `feature.h:53`). The reference
 keeps id-keyed hash maps of pointer-linked View/Track objects; here the scene
-is flat arrays — the layout every TPU kernel consumes directly:
+is flat arrays — the layout every device kernel consumes directly:
 
     views:        extrinsics [V, 6] ([position, angle-axis], camera.h:202),
                   intrinsics group index [V], estimated mask [V]

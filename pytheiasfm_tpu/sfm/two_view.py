@@ -4,7 +4,7 @@ Re-design of `/root/reference/src/theia/sfm/estimate_twoview_info.{h,cc}`
 (`estimate_twoview_info.cc:259`, call stack SURVEY.md §3.1). The reference
 verifies one pair at a time inside a thread pool; here verification runs as a
 batched program over a whole block of view pairs at once (`vmap` over pairs x
-RANSAC hypotheses) — the premier TPU target identified in the survey.
+RANSAC hypotheses) — the premier accelerator target identified in the survey.
 
 Paths (estimate_twoview_info.h:84-96):
   1) both views calibrated -> essential matrix (5-pt RANSAC) -> decompose;

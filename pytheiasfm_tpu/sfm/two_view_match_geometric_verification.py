@@ -13,7 +13,7 @@ Re-design of
   5. two-view bundle adjustment + final reprojection gate (`.cc:173-180`),
   6. refreshed `TwoViewInfo` from the optimized cameras.
 
-TPU design: the reference verifies one pair per thread; every stage here is a
+Design: the reference verifies one pair per thread; every stage here is a
 fixed-shape jittable kernel with leading batch axes so a whole block of pairs
 runs as one device program (the matcher drives the batched path; the
 `TwoViewMatchGeometricVerification` class is the single-pair parity API).

@@ -4,7 +4,7 @@ Re-design of `/root/reference/src/theia/sfm/transformation/`:
 `align_point_clouds.h:52` (closed-form weighted Umeyama Sim(3)),
 `align_reconstructions.h:47-59` (align by common view positions, plus a
 RANSAC-robust variant), `transform_reconstruction.h` (apply a similarity to
-every camera and point). The Umeyama solve is a single batched SVD — on TPU
+every camera and point). The Umeyama solve is a single batched SVD — on the device
 the [3,3] covariance accumulation is one matmul over the point axis.
 """
 

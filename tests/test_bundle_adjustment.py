@@ -173,7 +173,7 @@ def test_ba_views_only(rng):
 
 
 def test_ba_f32(rng):
-    """The TPU path runs f32: must still converge to sub-pixel cost."""
+    """The accelerator path runs f32: must still converge to sub-pixel cost."""
     ext, points, params, obs = synth_ba_problem(rng)
     ext_n = (ext + rng.normal(size=ext.shape) * 0.01).astype(np.float32)
     pts_n = (points + rng.normal(size=points.shape) * 0.02).astype(np.float32)

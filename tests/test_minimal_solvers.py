@@ -67,7 +67,7 @@ def test_five_point_epipolar_constraint(rng):
 
 
 def test_five_point_f32(rng):
-    """f32 robustness: the TPU runs single precision."""
+    """f32 robustness: the accelerator path runs single precision."""
     x1, x2, R, t, E_gt, _ = synth_relative_pose(rng, 64, 5)
     E, valid = jax.jit(five_point.five_point_relative_pose)(
         jnp.asarray(x1, jnp.float32), jnp.asarray(x2, jnp.float32)

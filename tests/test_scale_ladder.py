@@ -103,7 +103,7 @@ def test_one_dsfm_scale_global_chain(rng):
     assert pos_err < 0.15 * scale
 
     elapsed = time.perf_counter() - t0
-    # Generous CPU budget; on TPU this chain is interactive.
+    # Generous CPU budget for the test host.
     assert elapsed < 900, f"1DSfM-scale chain took {elapsed:.0f}s"
 
 
@@ -125,9 +125,8 @@ def test_trafalgar_scale_pipeline_default_config():
     from pytheiasfm_tpu.transforms.alignment import align_point_clouds_umeyama
 
     t0 = time.perf_counter()
-    # Exactly the bench.py Trafalgar configuration (verified on the TPU:
-    # 5287/5288 views at 9.6 mm median). The CPU tier runs the same f64
-    # math; the wall-clock bound is sized for the 2-CPU test host.
+    # Exactly the bench.py Trafalgar configuration. The CPU tier runs the
+    # f64 math; the wall-clock bound is sized for a 2-CPU test host.
     recon, graph, gt_positions = sg.build_scene(V=5288, T=250_000, seed=0)
     options = ReconstructionEstimatorOptions(
         reconstruction_estimator_type=ReconstructionEstimatorType.GLOBAL,

@@ -1,8 +1,9 @@
-"""Micro-profile the BA kernel's components on the real TPU.
+"""Micro-profile the BA kernel's components on the accelerator.
 
 Times, in isolation, the pieces of one LM iteration on the Notre-Dame-scale
-bench problem (553 cams / 50k tracks / 300k obs) to locate where the
-0.7 s/iter goes: Jacobian build, segment-sums, gathers, the PCG matvec.
+bench problem (553 cams / 50k tracks / 300k obs) to locate where an
+iteration's time goes: Jacobian build, segment-sums, gathers, the PCG
+matvec.
 """
 
 import time
@@ -11,9 +12,10 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+import os
 import sys
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 from bench import build_problem  # noqa: E402
 
 
@@ -30,6 +32,9 @@ def timeit(fn, *args, reps=5, label=""):
 
 
 def main():
+    from pytheiasfm_tpu.utils.cache import enable_persistent_cache
+
+    enable_persistent_cache()
     prob = build_problem()
     V, T, O = prob["V"], prob["T"], prob["O"]
     print(f"V={V} T={T} O={O}")

@@ -3,7 +3,7 @@
 The analogue of the reference's canonical pipeline script
 (`pytests/sfm_pipeline.py`), self-contained: feature extraction is the
 package's own pure-JAX upright SIFT; matching, verification, and SfM run
-as batched TPU programs.
+as batched device programs.
 
 Usage:
   python tools/sfm_pipeline_images.py IMG [IMG ...]
